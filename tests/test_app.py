@@ -8,10 +8,10 @@ import os
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.app import AppConfig, DeviceConfig, SessionMgr, BookmarkMgr
-from cubicsdr_tpu.app.bookmarks import BookmarkEntry, BookmarkRange
-from cubicsdr_tpu.app.cli import parse_frequency, format_frequency
-from cubicsdr_tpu.receiver import DemodulatorMgr
+from cubicsdr.app import AppConfig, DeviceConfig, SessionMgr, BookmarkMgr
+from cubicsdr.app.bookmarks import BookmarkEntry, BookmarkRange
+from cubicsdr.app.cli import parse_frequency, format_frequency
+from cubicsdr.receiver import DemodulatorMgr
 
 
 def test_config_roundtrip(tmp_path):
@@ -94,9 +94,9 @@ def test_format_frequency():
 
 def test_cli_end_to_end(tmp_path):
     """Full CLI drive: synth capture file -> demod subcommand -> WAV."""
-    from cubicsdr_tpu.io.sources import SyntheticSource, Station
-    from cubicsdr_tpu.io.wav import read_wav
-    from cubicsdr_tpu.app.cli import main
+    from cubicsdr.io.sources import SyntheticSource, Station
+    from cubicsdr.io.wav import read_wav
+    from cubicsdr.app.cli import main
 
     src = SyntheticSource(1e6, 1 << 18,
                           [Station(200e3, "fm", audio_freq=1000.0,

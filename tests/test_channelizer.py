@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.channelizer import (
+from cubicsdr.ops.channelizer import (
     ChannelizerPFB, ChannelizerPFB2, channel_centers)
 from tests.conftest import make_tone
 

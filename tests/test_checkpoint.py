@@ -6,11 +6,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cubicsdr_tpu.app.checkpoint import save_state, load_state
-from cubicsdr_tpu.io.audio_out import AudioOutput
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.io.wav import read_wav
-from cubicsdr_tpu.receiver import (
+from cubicsdr.app.checkpoint import save_state, load_state
+from cubicsdr.io.audio_out import AudioOutput
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.io.wav import read_wav
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, plan_from_manager,
     controls_from_manager)
 

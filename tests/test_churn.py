@@ -14,8 +14,6 @@ while `run_blocks` streams continuously, asserting:
     (audio keyed to its stable instance id via a subset sink), the
     reference's retune-never-glitches contract
     (ref: src/demod/DemodulatorPreThread.cpp:105-151).
-
-The chip-scale version is scripts/tpu_evidence_r05.py churn_soak.
 """
 
 import json
@@ -26,9 +24,9 @@ import wave
 
 import numpy as np
 
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.ops.planar import PLANAR
-from cubicsdr_tpu.receiver import (
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.ops.planar import PLANAR
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, plan_from_manager,
     controls_from_manager)
 
@@ -49,8 +47,8 @@ def _ctl(port, body):
 
 
 def test_churn_adversary_vs_live_loop(tmp_path):
-    from cubicsdr_tpu.app.runner import LiveReceiver
-    from cubicsdr_tpu.app.webview import WebViewer
+    from cubicsdr.app.runner import LiveReceiver
+    from cubicsdr.app.webview import WebViewer
 
     mgr = DemodulatorMgr()
     survivor = mgr.new_demodulator(100e6 + 200e3, "FM", 200000)

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.modems import make_modem, modem_names
-from cubicsdr_tpu.modems.digital import (
+from cubicsdr.modems import make_modem, modem_names
+from cubicsdr.modems.digital import (
     psk_constellation, qam_constellation, symbols_to_bits)
 
 

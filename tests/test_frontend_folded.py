@@ -1,5 +1,5 @@
 """Folded-NCO frontend (tap-modulated Toeplitz resampler) == classic
-mix-then-resample, streaming, for both the tiled MXU path and the
+mix-then-resample, streaming, for both the tiled matmul path and the
 small-block fallback."""
 
 import numpy as np
@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.planar import PLANAR, from_complex, to_complex
-from cubicsdr_tpu.receiver.frontend import ChannelFrontend
+from cubicsdr.ops.planar import PLANAR, from_complex, to_complex
+from cubicsdr.receiver.frontend import ChannelFrontend
 
 
 RNG = np.random.default_rng(7)

@@ -5,10 +5,10 @@ src/audio/AudioSinkFileThread.cpp, src/sdr/SoapySDRThread.cpp:668-693)."""
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.io import (
+from cubicsdr.io import (
     WavWriter, write_wav, read_wav, FileIQSource, SyntheticSource,
     RecordingSink, SquelchOption, optimal_block_len, optimal_channel_count)
-from cubicsdr_tpu.io.sources import Station
+from cubicsdr.io.sources import Station
 
 
 def test_wav_roundtrip(tmp_path):

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.modems import make_modem, modem_names
+from cubicsdr.modems import make_modem, modem_names
 
 
 def tone_snr(audio, f0, fs, guard=30.0, fmax=None):
@@ -155,7 +155,7 @@ def test_fm_stereo_parity_vs_scipy_pll_chain():
     to agree: same tones, >=30 dB separation each, and >=0.99 waveform
     correlation after delay alignment."""
     import scipy.signal as sig
-    from cubicsdr_tpu.modems import make_modem
+    from cubicsdr.modems import make_modem
 
     fs, fa = 200000, 48000
     m = make_modem("FMS")

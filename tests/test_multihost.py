@@ -8,7 +8,7 @@ does not rest on a process_count()==1 identity check."""
 import subprocess
 import sys
 
-from cubicsdr_tpu.parallel import multihost
+from cubicsdr.parallel import multihost
 
 
 def test_two_process_dcn_ingest():
@@ -23,8 +23,8 @@ def test_two_process_dcn_ingest():
 
 
 def test_cli_worker_flags_exist():
-    # The path must be drivable from the shell (cubicsdr_tpu multihost).
-    r = subprocess.run([sys.executable, "-m", "cubicsdr_tpu",
+    # The path must be drivable from the shell (cubicsdr multihost).
+    r = subprocess.run([sys.executable, "-m", "cubicsdr",
                         "multihost", "--help"],
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0

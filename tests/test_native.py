@@ -1,10 +1,12 @@
 """Native C++ ingest runtime: conversions + ring semantics (built on the
 fly with g++; also exercises the numpy fallback paths)."""
 
+import os
+
 import numpy as np
 import pytest
 
-from cubicsdr_tpu import native
+from cubicsdr import native
 
 
 def test_native_lib_builds():
@@ -63,3 +65,25 @@ def test_ring_try_push_shedding():
     assert ring.dropped_samples == 80
     assert ring.fill == 80
     assert ring.read(90) is None      # not enough data -> no partial read
+
+
+def test_library_is_keyed_by_source_hash(tmp_path, monkeypatch):
+    """The built library's name follows the source: an edit (or a copy of
+    the checkout from another machine) builds afresh instead of loading a
+    stale binary, and the build lands in the git-ignored build dir."""
+    src = tmp_path / "ingest.cpp"
+    src.write_bytes(open(native._SRC, "rb").read())
+    monkeypatch.setattr(native, "_SRC", str(src))
+    a = native._lib_path()
+    assert a == native._lib_path()
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    b = native._lib_path()
+    assert a != b
+    assert os.path.dirname(a) == native._BUILD_DIR
+
+
+def test_build_dir_is_gitignored():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rel = os.path.relpath(native._BUILD_DIR, repo)
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert rel + "/" in f.read().split()

@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.nco import NCOMixer, mix
-from cubicsdr_tpu.ops.fir import FirFilter, FirDecimator
-from cubicsdr_tpu.ops.iir import DCBlocker, SOSFilter, FirstOrderIIR
-from cubicsdr_tpu.ops.freqdem import FreqDem
-from cubicsdr_tpu.ops.resample import RationalResampler, design_ratio
-from cubicsdr_tpu.ops import design
-from cubicsdr_tpu.stream.op import scan_blocks, split_blocks
+from cubicsdr.ops.nco import NCOMixer, mix
+from cubicsdr.ops.fir import FirFilter, FirDecimator
+from cubicsdr.ops.iir import DCBlocker, SOSFilter, FirstOrderIIR
+from cubicsdr.ops.freqdem import FreqDem
+from cubicsdr.ops.resample import RationalResampler, design_ratio
+from cubicsdr.ops import design
+from cubicsdr.stream.op import scan_blocks, split_blocks
 
 
 def run_stream(op, x, block_len):
@@ -158,7 +158,7 @@ class TestResampler:
 
 class TestAffineScan:
     def test_blocked_matches_scan_real(self):
-        from cubicsdr_tpu.ops.iir import affine_scan_1st_order
+        from cubicsdr.ops.iir import affine_scan_1st_order
         rng = np.random.default_rng(3)
         d = jnp.asarray(rng.standard_normal((2, 4096)).astype(np.float32))
         y0 = jnp.asarray(rng.standard_normal(2).astype(np.float32))
@@ -171,7 +171,7 @@ class TestAffineScan:
         # Regression: long blocks once routed complex c into the
         # float-only blocked form (TypeError); they must fall through to
         # the generic associative scan.
-        from cubicsdr_tpu.ops.iir import affine_scan_1st_order
+        from cubicsdr.ops.iir import affine_scan_1st_order
         rng = np.random.default_rng(4)
         c = np.complex64(0.95 * np.exp(1j * 0.3))
         d = jnp.asarray((rng.standard_normal(4096)
@@ -190,9 +190,9 @@ class TestAffineScan:
 
 class TestDigitalKitCarryDtype:
     def test_carry_matches_construction_dtype(self):
-        from cubicsdr_tpu.modems.digital import ConstellationKit, GMSKKit
-        from cubicsdr_tpu.modems.digital import psk_constellation
-        from cubicsdr_tpu.ops.planar import PC, PLANAR
+        from cubicsdr.modems.digital import ConstellationKit, GMSKKit
+        from cubicsdr.modems.digital import psk_constellation
+        from cubicsdr.ops.planar import PC, PLANAR
         pts = psk_constellation(4)
         planar = ConstellationKit(pts, differential=True, batch_shape=(3,),
                                   dtype=PLANAR).shard_carry_init()

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.planar import PLANAR, from_complex
-from cubicsdr_tpu.parallel import make_receiver_mesh
-from cubicsdr_tpu.parallel.halo import with_halo
-from cubicsdr_tpu.parallel.sharded import ShardedReceiver
-from cubicsdr_tpu.receiver import ReceiverPipeline, DemodGroupSpec
+from cubicsdr.ops.planar import PLANAR, from_complex
+from cubicsdr.parallel import make_receiver_mesh
+from cubicsdr.parallel.halo import with_halo
+from cubicsdr.parallel.sharded import ShardedReceiver
+from cubicsdr.receiver import ReceiverPipeline, DemodGroupSpec
 from jax.sharding import PartitionSpec as P
 
 

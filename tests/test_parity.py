@@ -8,10 +8,10 @@ import numpy as np
 import scipy.signal as sps
 import jax.numpy as jnp
 
-from cubicsdr_tpu.ops.freqdem import FreqDem
-from cubicsdr_tpu.ops.nco import NCOMixer
-from cubicsdr_tpu.ops.resample import RationalResampler, design_ratio
-from cubicsdr_tpu.stream.op import Chain, StreamOp, scan_blocks, split_blocks
+from cubicsdr.ops.freqdem import FreqDem
+from cubicsdr.ops.nco import NCOMixer
+from cubicsdr.ops.resample import RationalResampler, design_ratio
+from cubicsdr.stream.op import Chain, StreamOp, scan_blocks, split_blocks
 
 
 def tone_snr(audio, f0, fs):
@@ -81,7 +81,7 @@ def test_am_snr_parity_with_scipy_chain():
     iq = (iq + 0.01 * (rng.standard_normal(n)
                        + 1j * rng.standard_normal(n))).astype(np.complex64)
 
-    from cubicsdr_tpu.modems import make_modem
+    from cubicsdr.modems import make_modem
     kit = make_modem("AM").build_kit(int(fs))
     st = kit.init_state()
     outs = []
@@ -102,7 +102,7 @@ def test_am_snr_parity_with_scipy_chain():
 
 
 def test_network_iq_roundtrip():
-    from cubicsdr_tpu.io.net import IQServer, SocketIQSource
+    from cubicsdr.io.net import IQServer, SocketIQSource
     rng = np.random.default_rng(0)
     blocks = [
         (rng.standard_normal(1024) + 1j * rng.standard_normal(1024)
@@ -118,7 +118,7 @@ def test_network_iq_roundtrip():
 
 
 def test_digital_console_views():
-    from cubicsdr_tpu.app.digital_console import DigitalConsole
+    from cubicsdr.app.digital_console import DigitalConsole
     c = DigitalConsole(bits_per_symbol=8)
     c.write_symbols(np.frombuffer(b"Hi!", np.uint8))
     assert c.ascii_view() == "Hi!"

@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cubicsdr_tpu.ops import planar as pl
-from cubicsdr_tpu.receiver import ReceiverPipeline, DemodGroupSpec
+from cubicsdr.ops import planar as pl
+from cubicsdr.receiver import ReceiverPipeline, DemodGroupSpec
 
 
 def test_planar_idft_matches_numpy():

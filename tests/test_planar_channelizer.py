@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.planar import PC, PLANAR, from_complex, to_complex
-from cubicsdr_tpu.ops.channelizer import ChannelizerPFB, ChannelizerPFB2
+from cubicsdr.ops.planar import PC, PLANAR, from_complex, to_complex
+from cubicsdr.ops.channelizer import ChannelizerPFB, ChannelizerPFB2
 
 RNG = np.random.default_rng(7)
 
@@ -58,7 +58,7 @@ def test_pfb2_planar_batched():
 
 def test_pfb_tone_lands_in_channel():
     # Planar PFB: a tone at channel 3's center lands in channel 3.
-    from cubicsdr_tpu.ops.channelizer import channel_centers
+    from cubicsdr.ops.channelizer import channel_centers
     M, fs = 8, 800_000.0
     centers = channel_centers(M, fs)
     n = 40 * M

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.modems import make_modem, modem_names
-from cubicsdr_tpu.ops.planar import PC, PLANAR, from_complex, to_complex
+from cubicsdr.modems import make_modem, modem_names
+from cubicsdr.ops.planar import PC, PLANAR, from_complex, to_complex
 
 RNG = np.random.default_rng(11)
 

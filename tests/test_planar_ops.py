@@ -1,19 +1,19 @@
 """Planar-complex (PC) paths of the primitive ops == complex64 paths.
 
 Every streaming op must produce identical results whether data flows as
-complex64 (CPU tests) or as two float32 planes (the TPU representation).
+complex64 (CPU tests) or as two float32 planes (the app representation).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.planar import PC, PLANAR, from_complex, to_complex
-from cubicsdr_tpu.ops.fir import FirFilter, DelayLine, FirDecimator
-from cubicsdr_tpu.ops.nco import NCOMixer
-from cubicsdr_tpu.ops.freqdem import FreqDem
-from cubicsdr_tpu.ops.iir import DCBlocker
-from cubicsdr_tpu.ops.resample import RationalResampler, make_resampler
+from cubicsdr.ops.planar import PC, PLANAR, from_complex, to_complex
+from cubicsdr.ops.fir import FirFilter, DelayLine, FirDecimator
+from cubicsdr.ops.nco import NCOMixer
+from cubicsdr.ops.freqdem import FreqDem
+from cubicsdr.ops.iir import DCBlocker
+from cubicsdr.ops.resample import RationalResampler, make_resampler
 
 RNG = np.random.default_rng(42)
 

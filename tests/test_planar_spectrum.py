@@ -1,11 +1,11 @@
-"""Planar spectrum == complex spectrum (TPU-executable waterfall path)."""
+"""Planar spectrum == complex spectrum (complex-free waterfall path)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from cubicsdr_tpu.ops import planar as pl
-from cubicsdr_tpu.visual import SpectrumProcessor
-from cubicsdr_tpu.visual.planar_spectrum import PlanarSpectrumProcessor
+from cubicsdr.ops import planar as pl
+from cubicsdr.visual import SpectrumProcessor
+from cubicsdr.visual.planar_spectrum import PlanarSpectrumProcessor
 from tests.conftest import make_tone
 
 
@@ -27,7 +27,7 @@ def test_planar_matches_complex_spectrum():
 
 
 def test_planar_64k_fft_frame():
-    """BASELINE config #3 shape: 64k-point frames as two MXU matmuls."""
+    """BASELINE config #3 shape: 64k-point frames as two matmuls."""
     ps = PlanarSpectrumProcessor(32768)      # internal 65536 points
     assert ps.n == 65536 and ps.n1 * ps.n2 == 65536
     x = make_tone(ps.n, 1.25e6, 10e6).reshape(1, ps.n)

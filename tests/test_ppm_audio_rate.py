@@ -11,10 +11,10 @@ import wave
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.io.audio_out import HostResampler
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.ops.planar import PLANAR
-from cubicsdr_tpu.receiver import (
+from cubicsdr.io.audio_out import HostResampler
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.ops.planar import PLANAR
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, plan_from_manager,
     controls_from_manager)
 
@@ -78,8 +78,8 @@ def _get(port, path):
 
 @pytest.fixture(scope="module")
 def hx():
-    from cubicsdr_tpu.app.runner import LiveReceiver
-    from cubicsdr_tpu.app.webview import WebViewer
+    from cubicsdr.app.runner import LiveReceiver
+    from cubicsdr.app.webview import WebViewer
 
     class H:
         def __init__(self):

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.receiver import (
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, DemodGroupSpec,
     plan_from_manager, controls_from_manager)
 

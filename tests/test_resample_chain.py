@@ -1,6 +1,6 @@
 """design_ratio degeneracy fix + multi-stage resampler chain.
 
-Round-1 VERDICT confirmed bug: design_ratio(500/800000, 500) returned (0, 1)
+Regression: design_ratio(500/800000, 500) once returned (0, 1)
 — a CW demod (default 500 Hz bandwidth, ref: src/modules/modem/Modem.h:13)
 on an 800 kHz channel got a P=0 resampler (silence). The reference's
 msresamp handles arbitrary ratios (ref: src/demod/DemodulatorWorkerThread
@@ -13,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from cubicsdr_tpu.ops.planar import PC, to_complex, from_complex
-from cubicsdr_tpu.ops.resample import (
+from cubicsdr.ops.planar import PC, to_complex, from_complex
+from cubicsdr.ops.resample import (
     PlanarResampler, RationalResampler, ResamplerChain, design_ratio,
     make_resampler, stage_plan)
 
@@ -31,7 +31,7 @@ def test_design_ratio_cw_on_wide_channel():
 def test_design_ratio_error_bound():
     # Every (channel_rate, bandwidth) pair from the reference's modem
     # defaults must land within 0.1% of the requested ratio.
-    from cubicsdr_tpu.modems.base import _MODEM_REGISTRY
+    from cubicsdr.modems.base import _MODEM_REGISTRY
     chan_rates = [250_000, 300_000, 400_000, 500_000, 800_000, 1_000_000]
     for name, cls in _MODEM_REGISTRY.items():
         bw = cls.default_sample_rate
@@ -143,7 +143,7 @@ def test_planar_resampler_batched_real():
 
 def test_frontend_cw_on_wide_channel_regression():
     # Round-1: this construction yielded a P=0 resampler (dead CW demod).
-    from cubicsdr_tpu.receiver.frontend import ChannelFrontend
+    from cubicsdr.receiver.frontend import ChannelFrontend
     fe = ChannelFrontend(800_000.0, 500.0, 1)
     assert fe.P >= 1
     n = fe.Q * 16
@@ -166,8 +166,8 @@ def test_shifted_resample_conv_matches_matmul():
     only by f32 wrapping, ~1e-4 relative)."""
     import numpy as np
     import jax.numpy as jnp
-    from cubicsdr_tpu.ops.planar import PC
-    from cubicsdr_tpu.ops.resample import (
+    from cubicsdr.ops.planar import PC
+    from cubicsdr.ops.resample import (
         RationalResampler, planar_shifted_resample_conv,
         planar_shifted_resample_matmul)
     rng = np.random.default_rng(7)
@@ -194,8 +194,8 @@ def test_frontend_conv_route_form(monkeypatch):
     output stream as the matmul form."""
     import numpy as np
     import jax.numpy as jnp
-    import cubicsdr_tpu.receiver.frontend as fr
-    from cubicsdr_tpu.ops.planar import PC, PLANAR
+    import cubicsdr.receiver.frontend as fr
+    from cubicsdr.ops.planar import PC, PLANAR
     rng = np.random.default_rng(8)
     N, L = 3, 640 * 16
     x = PC(jnp.asarray(rng.standard_normal((N, L)).astype(np.float32)),

@@ -6,12 +6,12 @@ recorders + waterfall + metrics. Plus device enumeration and rig control
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.app.rig import (
+from cubicsdr.app.rig import (
     SimulatedRig, RigController, RigError, RigIOError)
-from cubicsdr_tpu.io.devices import SDREnumerator, SDRDeviceInfo
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.io.wav import read_wav
-from cubicsdr_tpu.receiver import (
+from cubicsdr.io.devices import SDREnumerator, SDRDeviceInfo
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.io.wav import read_wav
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, plan_from_manager,
     controls_from_manager)
 
@@ -19,8 +19,8 @@ from cubicsdr_tpu.receiver import (
 @pytest.mark.parametrize("dtype", ["complex", "planar"])
 def test_live_receiver_records_and_draws(tmp_path, dtype):
     import jax.numpy as jnp
-    from cubicsdr_tpu.ops.planar import PLANAR
-    from cubicsdr_tpu.app.runner import LiveReceiver
+    from cubicsdr.ops.planar import PLANAR
+    from cubicsdr.app.runner import LiveReceiver
     fs = 1_000_000
     mgr = DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
@@ -109,8 +109,8 @@ def test_native_format_ingest_int16_matches_f32():
     Audio must match the f32 path within 16-bit quantization noise, and
     the visual/waterfall chain must run from the converted tap."""
     import jax.numpy as jnp
-    from cubicsdr_tpu.ops.planar import PLANAR
-    from cubicsdr_tpu.app.runner import LiveReceiver
+    from cubicsdr.ops.planar import PLANAR
+    from cubicsdr.app.runner import LiveReceiver
     fs = 1_000_000
     mgr = DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
@@ -155,8 +155,8 @@ def test_raw_source_into_f32_ring_normalizes():
     ingest must be scaled to ±1, not cast hot (a bare int->float cast is
     32768x the correct amplitude)."""
     import jax.numpy as jnp
-    from cubicsdr_tpu.ops.planar import PLANAR
-    from cubicsdr_tpu.app.runner import LiveReceiver
+    from cubicsdr.ops.planar import PLANAR
+    from cubicsdr.app.runner import LiveReceiver
     fs = 1_000_000
     mgr = DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
@@ -187,8 +187,8 @@ def test_native_format_ingest_int8_end_to_end():
     """CS8 (RTL-SDR class hardware): 8-bit planes through ring + device,
     FM still decodes its tone (8-bit IQ SNR floor, not a scaling bug)."""
     import jax.numpy as jnp
-    from cubicsdr_tpu.ops.planar import PLANAR
-    from cubicsdr_tpu.app.runner import LiveReceiver
+    from cubicsdr.ops.planar import PLANAR
+    from cubicsdr.app.runner import LiveReceiver
     fs = 1_000_000
     mgr = DemodulatorMgr()
     mgr.new_demodulator(100e6 + 200e3, "FM", 200000)

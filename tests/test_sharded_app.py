@@ -8,9 +8,9 @@ import wave
 
 import numpy as np
 
-from cubicsdr_tpu.app.cli import main
-from cubicsdr_tpu.app.session import SessionMgr
-from cubicsdr_tpu.receiver import DemodulatorMgr
+from cubicsdr.app.cli import main
+from cubicsdr.app.session import SessionMgr
+from cubicsdr.receiver import DemodulatorMgr
 
 FS = 1_000_000
 
@@ -43,10 +43,10 @@ def _make_capture(path, n_samples):
 def _block_len():
     # The block size the sharded plan will pick for this session shape.
     import jax
-    from cubicsdr_tpu.parallel import make_receiver_mesh
-    from cubicsdr_tpu.parallel.sharded import ShardedReceiver
-    from cubicsdr_tpu.receiver import DemodGroupSpec
-    from cubicsdr_tpu.io.sources import optimal_channel_count
+    from cubicsdr.parallel import make_receiver_mesh
+    from cubicsdr.parallel.sharded import ShardedReceiver
+    from cubicsdr.receiver import DemodGroupSpec
+    from cubicsdr.io.sources import optimal_channel_count
     mesh = make_receiver_mesh(n_time=4, n_chan=2,
                               devices=jax.devices()[:8])
     return ShardedReceiver(

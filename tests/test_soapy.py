@@ -5,7 +5,7 @@ rate renegotiation, staged-settings atomics, device-loss surfacing
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.io.soapy import (
+from cubicsdr.io.soapy import (
     SoapySDRSource, DeviceLostError, optimal_element_count,
     SOAPY_SDR_TIMEOUT)
 
@@ -159,9 +159,9 @@ def test_device_loss_raises_and_runner_surfaces_it():
 
     # Through LiveReceiver: the producer thread must die cleanly and set
     # source_error instead of crashing the process.
-    from cubicsdr_tpu.app.runner import LiveReceiver
-    from cubicsdr_tpu.ops.planar import PLANAR
-    from cubicsdr_tpu.receiver import (
+    from cubicsdr.app.runner import LiveReceiver
+    from cubicsdr.ops.planar import PLANAR
+    from cubicsdr.receiver import (
         DemodulatorMgr, ReceiverPipeline, plan_from_manager,
         controls_from_manager)
     fs = 2_400_000

@@ -1,5 +1,5 @@
 """The unified ReceiverPipeline: ONE class, both representations, all modem
-kinds (VERDICT r1 items #1 and #3).
+kinds.
 
 - planar (dtype=PLANAR) pipeline == complex64 pipeline on a mixed analog farm
 - digital groups ride the same pipeline: FSK symbols decode through
@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.ops.planar import PLANAR, from_complex
-from cubicsdr_tpu.receiver import ReceiverPipeline, DemodGroupSpec
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.ops.planar import PLANAR, from_complex
+from cubicsdr.receiver import ReceiverPipeline, DemodGroupSpec
 
 FS = 2_000_000
 
@@ -115,8 +115,8 @@ def test_fsk_decodes_through_pipeline(dtype):
 
 def test_mixed_analog_digital_plan():
     """An FM + BPSK session in ONE compiled step: the analog group feeds the
-    mix, the digital group emits symbols; the crash from VERDICT r1
-    Missing #2 (dict fed into the squelch gate) must be gone."""
+    mix, the digital group emits symbols; a dict fed into the squelch
+    gate once crashed this plan."""
     specs = [DemodGroupSpec("FM", 200000, 1),
              DemodGroupSpec("BPSK", 19200, 1)]
     rx = ReceiverPipeline(FS, specs, dtype=PLANAR)

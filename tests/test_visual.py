@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.visual import (
+from cubicsdr.visual import (
     SpectrumProcessor, FFTDataDistributor, ScopeProcessor, Waterfall,
     Gradient, THEMES)
-from cubicsdr_tpu.visual.spectrum import SpectrumView, SPECTRUM_VZM
+from cubicsdr.visual.spectrum import SpectrumView, SPECTRUM_VZM
 from tests.conftest import make_tone
 
 
@@ -101,7 +101,7 @@ def test_spectrum_view_zoom():
 
 
 def test_scope_modes_and_audio_fft():
-    from cubicsdr_tpu.visual.scope import scope_trace
+    from cubicsdr.visual.scope import scope_trace
     audio = jnp.stack([jnp.sin(jnp.arange(1000) * 0.1),
                        jnp.cos(jnp.arange(1000) * 0.1)])
     assert scope_trace(audio, "Y").shape == (1, 1000)

@@ -11,9 +11,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from cubicsdr_tpu.io.sources import SyntheticSource, Station
-from cubicsdr_tpu.ops.planar import PLANAR
-from cubicsdr_tpu.receiver import (
+from cubicsdr.io.sources import SyntheticSource, Station
+from cubicsdr.ops.planar import PLANAR
+from cubicsdr.receiver import (
     DemodulatorMgr, ReceiverPipeline, plan_from_manager,
     controls_from_manager)
 
@@ -36,14 +36,14 @@ def _post(port, path, body):
 
 class _Harness:
     def __init__(self):
-        from cubicsdr_tpu.app.runner import LiveReceiver
-        from cubicsdr_tpu.app.webview import WebViewer
-        from cubicsdr_tpu.io.devices import SDRDeviceInfo
+        from cubicsdr.app.runner import LiveReceiver
+        from cubicsdr.app.webview import WebViewer
+        from cubicsdr.io.devices import SDRDeviceInfo
 
         self.mgr = DemodulatorMgr()
         self.mgr.new_demodulator(100e6 + 200e3, "FM", 200000)
         specs, keyed = plan_from_manager(self.mgr)
-        # Production representation: planar (the TPU path) — webview/runner
+        # Production representation: planar (the app path) — webview/runner
         # must never construct complex64 device arrays.
         rx = ReceiverPipeline(FS, specs, dtype=PLANAR)
         controls = controls_from_manager(self.mgr, rx, keyed, 100e6)
@@ -87,7 +87,7 @@ def hx():
 
 
 def test_index_page(hx):
-    assert b"cubicsdr_tpu" in _get(hx.port, "/")
+    assert b"cubicsdr" in _get(hx.port, "/")
 
 
 def test_state(hx):
@@ -284,7 +284,7 @@ def test_digital_console_live_feed(hx):
 def test_rig_attach_and_rest(hx):
     """Rig wired into the live loop (ref: src/rig/RigThread.cpp:133-207):
     follow mode retunes the app center from rig motion; REST mode toggles."""
-    from cubicsdr_tpu.app.rig import RigController, SimulatedRig
+    from cubicsdr.app.rig import RigController, SimulatedRig
     rig = SimulatedRig(100e6)
     hx.viewer.attach_rig(RigController(rig), poll_every_s=0.0)
     st = json.loads(_get(hx.port, "/api/rig"))
@@ -355,16 +355,16 @@ def test_plan_rebuild_preserves_streaming_state():
     filter/NCO/AGC/squelch state: their audio continues exactly as if no
     rebuild happened (ref: DemodulatorPreThread.cpp:105-151 — other demods
     never glitch on a plan change)."""
-    from cubicsdr_tpu.app.runner import LiveReceiver
-    from cubicsdr_tpu.app.webview import WebViewer
-    from cubicsdr_tpu.ops.planar import PC, PLANAR
+    from cubicsdr.app.runner import LiveReceiver
+    from cubicsdr.app.webview import WebViewer
+    from cubicsdr.ops.planar import PC, PLANAR
     import jax.numpy as jnp
 
     fm = (100e6 + 200e3, "FM", 200000)
     am = (100e6 - 300e3, "AM", 10000)
 
     # Shared block size that satisfies BOTH plans (pinned => forwarded).
-    from cubicsdr_tpu.receiver import DemodGroupSpec
+    from cubicsdr.receiver import DemodGroupSpec
     L = ReceiverPipeline(FS, [DemodGroupSpec("FM", 200000, 1),
                               DemodGroupSpec("AM", 10000, 1)],
                          dtype=PLANAR).block_len

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cubicsdr_tpu.ops.planar import PLANAR
-from cubicsdr_tpu.visual.spectrum import (
+from cubicsdr.ops.planar import PLANAR
+from cubicsdr.visual.spectrum import (
     ZoomSpectrumView, shift_display_state, rescale_display_state)
 
 
@@ -109,9 +109,9 @@ def test_zoom_rescales_history():
 def test_runner_zoom_wiring():
     """LiveReceiver.set_zoom feeds the zoom view from the live stream and
     the webview surfaces its points."""
-    from cubicsdr_tpu.app.runner import LiveReceiver
-    from cubicsdr_tpu.io.sources import SyntheticSource, Station
-    from cubicsdr_tpu.receiver import (
+    from cubicsdr.app.runner import LiveReceiver
+    from cubicsdr.io.sources import SyntheticSource, Station
+    from cubicsdr.receiver import (
         DemodulatorMgr, ReceiverPipeline, plan_from_manager,
         controls_from_manager)
 
@@ -144,8 +144,8 @@ def test_runner_zoom_wiring():
 
 def test_zoom_program_cache_reuse():
     """Zooming in then back out must reuse the cached jitted program for
-    each revisited (P, Q, chunk) — on the real chip a view compile costs
-    minutes, so repeated zoom levels can never re-jit."""
+    each revisited (P, Q, chunk) — a view compile stalls the stream, so
+    repeated zoom levels can never re-jit."""
     fs, L = 1_000_000, 20000
     v = ZoomSpectrumView(fs, L, fft_size=128, dtype=PLANAR)
     step_full = v._step
